@@ -1,9 +1,10 @@
-"""padne_tpu — a TPU-native DC power-delivery-network analyzer.
+"""padne_tpu — a DC power-delivery-network analyzer for KiCad projects.
 
 A ground-up rebuild of the capabilities of the reference padne tool:
 KiCad project loading, copper geometry extraction, constrained-Delaunay
-meshing (native C++ core), FEM assembly and linear solve (JAX/XLA/Pallas,
-designed for TPUs), field post-processing, visualization and export.
+meshing (native C++ core), FEM assembly and an iterative linear solve
+in JAX/XLA that runs on an NVIDIA GPU (or the CPU), field
+post-processing, visualization and export.
 
 Keep this import light: heavy numerical dependencies (jax) load lazily in
 the modules that need them.

@@ -85,6 +85,23 @@ def device_mesh_from_args(args):
     return sharding.make_mesh(args.tp)
 
 
+def serve_daemon_for(args):
+    """The live `padne-tpu serve` daemon that should take this command's
+    solve, or None.  With one, this process pins itself to the CPU
+    before any JAX backend starts, so that only the daemon opens the
+    card.  --tp N > 1 always solves in this process.
+    PADNE_TPU_SERVER=0 disables the dispatch; PADNE_TPU_SOCKET overrides
+    the socket path."""
+    if getattr(args, "tp", 1) > 1:
+        return None
+    from . import runtime, serve
+
+    server = serve.find_server()
+    if server is not None:
+        runtime.pin_to_cpu()
+    return server
+
+
 def mesher_config_from_args(args):
     from . import mesh
 
@@ -154,8 +171,9 @@ def parse_args(argv=None) -> argparse.Namespace:
 
     p_srv = sub.add_parser(
         "serve",
-        help="Run a resident solve server (keeps compiled TPU programs "
-             "hot; later `solve`/`gui` runs auto-dispatch to it)",
+        help="Run a resident solve server (owns the accelerator and "
+             "keeps compiled programs hot; later `solve`/`gui` runs "
+             "dispatch to it and stay on the CPU)",
         formatter_class=argparse.ArgumentDefaultsHelpFormatter,
     )
     p_srv.add_argument("--socket", type=Path, default=None,
@@ -185,6 +203,7 @@ def do_gui(args) -> int:
     from . import kicad, solver, ui
 
     log = logging.getLogger(__name__)
+    server = serve_daemon_for(args)
     log.info("Loading KiCad project for GUI: %s", args.kicad_pro_file)
     prob = kicad.load_kicad_project(args.kicad_pro_file)
     with collect_warnings() as warns:
@@ -192,6 +211,7 @@ def do_gui(args) -> int:
             prob,
             mesher_config=mesher_config_from_args(args),
             device_mesh=device_mesh_from_args(args),
+            server=server,
         )
     captured = [w for w in warns if issubclass(w.category, solver.SolverWarning)]
     return ui.main(solution, captured)
@@ -203,6 +223,7 @@ def do_solve(args) -> None:
     from .io import solution as solution_io
 
     log = logging.getLogger(__name__)
+    server = serve_daemon_for(args)
     log.info("Loading KiCad project: %s", args.kicad_pro_file)
     prob = kicad.load_kicad_project(args.kicad_pro_file)
     log.info("Solving problem...")
@@ -210,6 +231,7 @@ def do_solve(args) -> None:
         prob,
         mesher_config=mesher_config_from_args(args),
         device_mesh=device_mesh_from_args(args),
+        server=server,
     )
     solution_io.save_solution(sol, args.output_file)
     log.info("Solution saved to %s", args.output_file)
@@ -293,33 +315,26 @@ def do_info(args) -> None:
         )
 
 
-def apply_jax_platform_env() -> None:
-    """Honor JAX_PLATFORMS even when site startup hard-set the config.
-
-    Some deployments register accelerator plugins from sitecustomize and
-    pin ``jax_platforms`` there, which silently overrides the environment
-    variable.  Re-apply the user's choice so ``JAX_PLATFORMS=cpu padne-tpu
-    solve ...`` works on hosts without (or with unreachable) accelerators.
-    """
+def configure_jax() -> None:
+    """Process-wide JAX settings, applied before any backend starts:
+    the persistent compile cache (padne_tpu.runtime) and x64, which the
+    solver's f64 refinement residuals need (hot-path arrays stay
+    explicit f32).  PADNE_TPU_X64=0 opts out of x64."""
     import os
 
-    plat = os.environ.get("JAX_PLATFORMS")
-    if plat:
-        import jax
+    import jax
 
-        jax.config.update("jax_platforms", plat)
-    # x64 on: enables the solver's f64 device anchor (hot-path arrays
-    # stay explicit f32).  PADNE_TPU_X64=0 opts out.
+    from . import runtime
+
+    runtime.enable_compile_cache()
     if os.environ.get("PADNE_TPU_X64", "1") != "0":
-        import jax
-
         jax.config.update("jax_enable_x64", True)
 
 
 def main(argv=None) -> None:
     args = parse_args(argv)
     setup_logging(args.debug)
-    apply_jax_platform_env()
+    configure_jax()
     logging.getLogger(__name__).debug("Parsed arguments: %s", args)
     result = {
         "gui": do_gui,

@@ -1,1 +1,2 @@
-from . import solution, paraview  # noqa: F401
+"""Solution artifacts and exporters.  Submodules load on demand: the
+ParaView and HTML exporters are not needed by `padne-tpu solve`."""

@@ -15,7 +15,7 @@ from pathlib import Path
 from typing import Set
 
 import numpy as np
-from lxml.etree import Element, ElementTree, SubElement
+from xml.etree.ElementTree import Element, ElementTree, SubElement, indent
 
 from .. import mesh as mesh_mod
 from .. import solver as solver_mod
@@ -116,11 +116,11 @@ def export_solution(solution: solver_mod.Solution, output_dir: Path) -> None:
             )
             grid.append(create_piece(m, pot, power))
             total_pieces += 1
+        indent(root)
         ElementTree(root).write(
             str(output_dir / f"{filename}.vtu"),
             xml_declaration=True,
             encoding="utf-8",
-            pretty_print=True,
         )
         total_files += 1
     log.info(

@@ -5,7 +5,7 @@ half-edge graph in Python (mesh.py:72-378) and walks it in hot loops, this
 framework keeps meshes as flat numpy arrays (vertices (V,2), triangles
 (F,3)) so that cotangent weights, stiffness assembly and field
 post-processing are single vectorized expressions that move straight onto
-the TPU (see padne_tpu.ops).  Adjacency (unique edges, boundary masks)
+the device (see padne_tpu.ops).  Adjacency (unique edges, boundary masks)
 is derived once with numpy and cached.
 
 Discrete-exterior-calculus forms (ZeroForm on vertices / OneForm on edges

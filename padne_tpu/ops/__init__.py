@@ -1,13 +1,13 @@
-"""Device-side numerical core (JAX/XLA/Pallas).
+"""Device-side numerical core (JAX/XLA).
 
 Everything from FEM stiffness assembly through the linear solve and field
 post-processing runs here as jittable functions over flat arrays — the
-TPU-native replacement for the reference's scipy-sparse pipeline
+device replacement for the reference's scipy-sparse pipeline
 (solver.py:171-213, 469-560, 767-780).
 
 64-bit floats are enabled globally: the solver's accuracy gates (1e-9
-residual, 1e-6 V parity vs scipy) are defined in f64.  On TPU, f64 is
-emulated; performance-critical paths offer f32 + iterative refinement.
+residual, 1e-6 V parity vs scipy) are defined in f64.  The hot paths run
+f32 with f64 iterative refinement on the device.
 """
 
 import jax

@@ -36,7 +36,8 @@ def face_gradients(vertices: jnp.ndarray, triangles: jnp.ndarray,
     # Safe divide: CDT output never has zero-area faces, but padding
     # faces in the batched path (all vertices = vertex 0) do.
     safe = jnp.where(area2 != 0.0, area2, 1.0)
-    grad = jnp.einsum("fk,fkd->fd", f, rot) / safe[:, None]
+    grad = jnp.einsum("fk,fkd->fd", f, rot,
+                      precision=jax.lax.Precision.HIGHEST) / safe[:, None]
     return jnp.where((area2 != 0.0)[:, None], grad, 0.0)
 
 

@@ -1,17 +1,10 @@
 """Sparse matrix-vector products in ELL layout.
 
-The multi-RHS SpMV is the hot kernel of the PCG solve (reference
+The multi-RHS SpMV of the generic (gather) solve path (reference
 equivalent: SuperLU factorization inside scipy.spsolve, solver.py:773).
-Two implementations:
-
-* ``ell_matvec`` — pure XLA: one gather + weighted reduction.  XLA fuses
-  this well and it is the portable default (CPU tests, TPU fallback).
-* ops.spmv_pallas — experimental Pallas variants (windowed/banded
-  gathers); current Mosaic rejects large-extent sublane gathers, so the
-  XLA path remains the production kernel (findings documented there).
-
-Both paths compute  y = diag * x + OffDiag @ x  where the ELL arrays hold the
-off-diagonal entries.
+``ell_matvec`` is pure XLA: one gather + weighted reduction computing
+y = diag * x + OffDiag @ x, where the ELL arrays hold the off-diagonal
+entries.  The large-mesh path uses the slab format instead (ops.dia).
 """
 
 from __future__ import annotations
@@ -25,8 +18,8 @@ def collectives(axis_name):
 
     With axis_name=None both are identities (single-device semantics);
     inside shard_map over `axis_name`, `gather` reassembles the full
-    vector from row shards (all_gather over ICI) and `gsum` completes a
-    locally reduced sum (psum).
+    vector from row shards (all_gather) and `gsum` completes a locally
+    reduced sum (psum).
     """
     if axis_name is None:
         return (lambda x: x), (lambda v: v)
@@ -41,16 +34,9 @@ def collectives(axis_name):
 
 
 def shard_map_unchecked(f, mesh, in_specs, out_specs):
-    """shard_map with replication checking off, across jax versions
-    (jax >= 0.8 renamed check_rep to check_vma and moved the API out of
-    experimental)."""
-    try:
-        return jax.shard_map(f, mesh=mesh, in_specs=in_specs,
-                             out_specs=out_specs, check_vma=False)
-    except (AttributeError, TypeError):  # pragma: no cover - older jax
-        from jax.experimental.shard_map import shard_map
-        return shard_map(f, mesh=mesh, in_specs=in_specs,
-                         out_specs=out_specs, check_rep=False)
+    """jax.shard_map with replication (vma) checking off."""
+    return jax.shard_map(f, mesh=mesh, in_specs=in_specs,
+                         out_specs=out_specs, check_vma=False)
 
 
 def ell_matvec(cols: jnp.ndarray, vals: jnp.ndarray, diag: jnp.ndarray,
@@ -64,5 +50,6 @@ def ell_matvec(cols: jnp.ndarray, vals: jnp.ndarray, diag: jnp.ndarray,
         off = (vals * gathered).sum(axis=1)
         return diag * x + off
     gathered = x[cols]                          # (N, K, R)
-    off = jnp.einsum("nk,nkr->nr", vals, gathered)
+    off = jnp.einsum("nk,nkr->nr", vals, gathered,
+                     precision=jax.lax.Precision.HIGHEST)
     return diag[:, None] * x + off

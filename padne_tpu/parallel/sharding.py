@@ -2,17 +2,17 @@
 
 The reference is strictly single-process/CPU (SURVEY.md §2: no
 DP/TP/PP/SP/EP, no distributed backend).  This module supplies the
-TPU-native scaling story (BASELINE.json configs[3..4]):
+multi-device scaling story (BASELINE.json configs[3..4]):
 
 * **TP (tensor parallel)**: rows of the ELL operator and all CG state
   are sharded over the `tp` mesh axis; each SpMV all-gathers the search
-  direction over ICI and reduces dot products with `psum`.
+  direction and reduces dot products with `psum`.
 * **DP (data parallel)**: independent solves (mesher-parameter or design
   sweeps sharing one mesh structure but different conductances/sources)
   batch along a leading axis sharded over `dp`.
 
 Everything is expressed with `shard_map` over a `jax.sharding.Mesh`, so
-the same code runs on N real TPU chips or on virtual CPU devices
+the same code runs on N GPUs or on virtual CPU devices
 (xla_force_host_platform_device_count) for testing.
 """
 
@@ -116,7 +116,8 @@ def sharded_cg(mesh: Mesh, cols, vals, diag, b, iters: int = 200,
         def matvec(p_l):
             p_full = jax.lax.all_gather(p_l, "tp", axis=0, tiled=True)  # (n, R)
             gathered = p_full[cols_l]  # (n_local, K, R)
-            off = jnp.einsum("nk,nkr->nr", vals_l, gathered)
+            off = jnp.einsum("nk,nkr->nr", vals_l, gathered,
+                             precision=jax.lax.Precision.HIGHEST)
             return diag_l[:, None] * p_l + off
 
         def pdot(a_l, b2_l):
@@ -182,7 +183,8 @@ def batched_sharded_cg(mesh: Mesh, cols, vals, diag, b, iters: int = 200):
         def matvec(p_l):
             p_full = jax.lax.all_gather(p_l, "tp", axis=1, tiled=True)
             gathered = jnp.take(p_full, cols_l, axis=1)  # (B_l, n_local, K, R)
-            off = jnp.einsum("bnk,bnkr->bnr", vals_l, gathered)
+            off = jnp.einsum("bnk,bnkr->bnr", vals_l, gathered,
+                             precision=jax.lax.Precision.HIGHEST)
             return diag_l[..., None] * p_l + off
 
         def pdot(a2, b2):

@@ -1,6 +1,6 @@
 """Batched design sweeps: many solves of one board, varying parameters.
 
-The reference solves one configuration per process run.  TPU-native
+The reference solves one configuration per process run.  Device
 sweeps (BASELINE.json configs[4]) exploit the fact that mesher output
 and system *structure* are shared across a sweep over physical
 parameters (copper weight / sheet conductance, source values): the ELL

@@ -64,7 +64,7 @@ class TestVcycleDiaPCG:
         ell, coords = grid_laplacian(g)
         n = g * g
         h = amg.build_hierarchy_dia(ell, coords, coarse_size=100)
-        apply_v, vparams = amg.make_vcycle_dia(h, backend="xla")
+        apply_v, vparams = amg.make_vcycle_dia(h)
 
         rng = np.random.default_rng(3)
         b = rng.standard_normal((n, 2))
@@ -80,7 +80,7 @@ class TestVcycleDiaPCG:
         params0 = amg.make_dia_cg_operator(h, vparams)
 
         def a_apply(p, x):
-            return dia.dia_matvec(meta0, p, x, backend="xla")
+            return dia.dia_matvec(meta0, p, x)
 
         solver = cg.make_pcg(
             None, None, jnp.asarray(h.levels[0].pack.diag),
@@ -125,9 +125,9 @@ class TestTransposedPath:
         h = amg.build_hierarchy_dia(ell, coords, coarse_size=100)
         meta0 = h.levels[0].pack.meta
 
-        va, vp = amg.make_vcycle_dia(h, backend="xla")
+        va, vp = amg.make_vcycle_dia(h)
         op = amg.make_dia_cg_operator(h, vp)
-        va_t, vp_t = amg.make_vcycle_dia_t(h, backend="xla",
+        va_t, vp_t = amg.make_vcycle_dia_t(h,
                                            lump_smoothing=False)
 
         rng = np.random.default_rng(3)
@@ -142,11 +142,11 @@ class TestTransposedPath:
             None, None, None, jnp.asarray(comp), 2,
             precond=(va, vp),
             operator=(lambda p, x: dia.dia_matvec(
-                meta0, p, x, backend="xla"), op),
+                meta0, p, x), op),
         )
         s_t = cg.make_pcg_t(
             operator=(lambda p, xt: dia.dia_matvec_t(
-                meta0, p, xt, backend="xla"), op),
+                meta0, p, xt), op),
             precond=(va_t, vp_t),
             comp_id=jnp.asarray(comp), num_components=2,
         )
@@ -168,7 +168,7 @@ class TestTransposedPath:
         n = 64 * 64
         h = amg.build_hierarchy_dia(ell, coords, coarse_size=100)
         meta0 = h.levels[0].pack.meta
-        va_t, vp_t = amg.make_vcycle_dia_t(h, backend="xla",
+        va_t, vp_t = amg.make_vcycle_dia_t(h,
                                            lump_smoothing=True)
         op = amg.make_dia_cg_operator(h, vp_t)
         rng = np.random.default_rng(5)
@@ -180,7 +180,7 @@ class TestTransposedPath:
         comp[h.posmap0] = 0
         s_t = cg.make_pcg_t(
             operator=(lambda p, xt: dia.dia_matvec_t(
-                meta0, p, xt, backend="xla"), op),
+                meta0, p, xt), op),
             precond=(va_t, vp_t),
             comp_id=jnp.asarray(comp), num_components=2,
         )
@@ -267,9 +267,9 @@ class TestCoarseInvDense:
 
 
 class TestDeviceCoarseInv:
-    """On-device coarse inverse (f32 Cholesky + structural shift) must
-    act like the host dense inverse — PADNE_TPU_DEVICE_COARSE=1 forces
-    the device path off-TPU for this parity gate."""
+    """On-device coarse inverse (f32 Newton-Schulz + structural shift)
+    must act like the host dense inverse; PADNE_TPU_DEVICE_COARSE=1
+    opts into the device path."""
 
     def test_matches_host_inverse(self, monkeypatch):
         import jax.numpy as jnp
@@ -311,18 +311,33 @@ class TestDeviceCoarseInv:
         # The deferred host compute must NOT have been joined.
         assert callable(h._coarse)
 
+    @pytest.mark.parametrize("prebuilt", [False, True])
+    def test_device_failure_raises(self, monkeypatch, prebuilt):
+        """A failing device build raises instead of handing over to
+        the host inverse (sync call and async worker alike)."""
+        def boom(h):
+            raise ValueError("injected device failure")
+
+        monkeypatch.setenv("PADNE_TPU_DEVICE_COARSE", "1")
+        monkeypatch.setattr(amg, "_device_coarse_inv", boom)
+        ell, coords = grid_laplacian(g=32, seed=1)
+        h = amg.build_hierarchy_dia(ell, coords, coarse_size=80)
+        box = amg._start_coarse_inv_async(h, None) if prebuilt else None
+        with pytest.raises((RuntimeError, ValueError)) as info:
+            amg._upload_coarse_inv(h, None, prebuilt=box)
+        chain = [info.value, info.value.__cause__]
+        assert any("injected" in str(e) for e in chain if e)
+
 
 class TestSlotsLevelPolicy:
     def test_slots_level0_only(self, monkeypatch):
         """Slot packing (PADNE_TPU_SLOTS) must apply to level 0 only:
-        deep-level slot kernels composed inside the recursive cycle
-        program fault the TPU worker (Mosaic composition bug, v5e),
-        so make_vcycle_dia never requests them below level 0."""
+        make_vcycle_dia never requests slot tables below level 0."""
         monkeypatch.setenv("PADNE_TPU_SLOTS", "4")
         ell, coords = grid_laplacian(64)
         h = amg.build_hierarchy_dia(ell, coords, coarse_size=100)
         assert len(h.levels) >= 2
-        _, params = amg.make_vcycle_dia(h, backend="xla")
+        _, params = amg.make_vcycle_dia(h)
         lv0 = params[0]
         deep = params[1:-1]   # last entry is the coarse inverse
         if len(h.levels[0].pack.rem_rows):
@@ -344,9 +359,9 @@ class TestTransposedDeepCycle:
         bt = jnp.asarray(rng.standard_normal(
             (4, h.levels[0].pack.np_)).astype(np.float32))
         monkeypatch.setenv("PADNE_TPU_DEEP_T", "0")
-        a0, p0 = amg.make_vcycle_dia_t(h, backend="xla")
+        a0, p0 = amg.make_vcycle_dia_t(h)
         z0 = np.asarray(a0(p0, bt))
         monkeypatch.setenv("PADNE_TPU_DEEP_T", "1")
-        a1, p1 = amg.make_vcycle_dia_t(h, backend="xla")
+        a1, p1 = amg.make_vcycle_dia_t(h)
         z1 = np.asarray(a1(p1, bt))
         assert np.abs(z0 - z1).max() / np.abs(z0).max() < 1e-5

@@ -1,8 +1,8 @@
 """Block-ELL operator format (ops.bell): packing, orderings, matvec.
 
-The format exists because XLA's TPU gather costs per index row (see
-ops/bell.py header); these tests validate correctness on CPU — the
-performance claims are benchmarked on hardware by bench.py.
+The format amortizes each gather index over a tile (see the ops/bell.py
+header); these tests validate correctness on the CPU.  Production uses
+only its Hilbert ordering.
 """
 
 import numpy as np

@@ -215,6 +215,7 @@ class TestBoardPhysics:
         assert np.abs(z[: system.n] - result.v).max() < 1e-6
 
 
+@needs_boards
 class TestThtComponent:
     """tht_component: the reference EXCLUDES this board from every
     solve sweep without a documented reason (reference

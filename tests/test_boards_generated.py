@@ -153,10 +153,10 @@ def test_resistor_divider_current_path(boards):
 
 @pytest.mark.parametrize("name", ["gen_resistor_divider", "gen_regulator"])
 def test_mixed_precision_escalation(boards, name):
-    """The TPU production path (f32 inner + f64 refinement) must reach
+    """The accelerator path (f32 inner + f64 refinement) must reach
     the f64 answer even when kappa(A)*eps32 > 1 makes f32 refinement
     flatline.  Regression: gen_resistor_divider (milliohm couplings
-    against ~38 uV trace drops) stalled at max|dV| ~2e-2 V on TPU until
+    against ~38 uV trace drops) stalled at max|dV| ~2e-2 V until
     solve_bordered learned to escalate the inner solve to f64; the
     reference has no analog (scipy is all-f64, solver.py:767-780)."""
     import jax.numpy as jnp

@@ -81,7 +81,7 @@ class TestCompMatvec:
         error near 2^-48 relative to the row magnitude — the int16
         ratio residue (2^-39) fails this gate by ~2 orders, which is
         exactly how it floored the 1M-DoF residual at 1.2e-7 relative
-        on TPU (above the 1e-8 refinement target)."""
+        (above the 1e-8 refinement target)."""
         from tests.test_dia_sharded import grid_system
 
         ell, coords = grid_system(64, 64)
@@ -106,12 +106,14 @@ class TestCompMatvec:
         assert 4 <= k <= 10
 
 
-class TestSlabMode:
+class TestF64Mode:
+    """The solver's default mode (native f64 ELL products) at the scales
+    and spill shapes the removed slab mode was tested on."""
+
     @pytest.mark.parametrize("scale", [1.0, 2081.0 * np.pi / 3.0])
     def test_matches_f64_reference(self, scale):
-        """Slab-mode compensated matvec (pallas interpret on CPU) ==
-        f64 reference, including at cancellation-prone conductance
-        scales."""
+        """f64-mode matvec == f64 reference, including at
+        cancellation-prone conductance scales."""
         from tests.test_dia_sharded import grid_system
 
         ell, coords = grid_system(64, 64, n_far=30)
@@ -119,15 +121,14 @@ class TestSlabMode:
         pk = dia.pack_csr_as_dia(a, coverage=0.9, max_offsets=4)
         assert len(pk.rem_rows) > 0
         params = pk.to_device(keep_widx=True)
-        op = comp.build_slab_mode(pk.meta, params, pk, interpret=True)
+        op = comp.build(pk.meta, params, pk, mode="f64")
         n = a.shape[0]
         rng = np.random.default_rng(2)
         x32 = (rng.standard_normal(n).astype(np.float32)
                + np.linspace(0, 3.3, n).astype(np.float32))
         x_pad = np.zeros(pk.np_, np.float32)
         x_pad[:n] = x32
-        y = np.asarray(comp.matvec_slab(op, op.params,
-                                        jnp.asarray(x_pad), pk.meta))
+        y = np.asarray(comp.matvec(op, op.params, jnp.asarray(x_pad)))
         ref = a @ x32.astype(np.float64)
         scale_row = (abs(a) @ np.abs(x32.astype(np.float64))).max()
         assert np.abs(y[:n] - ref).max() < 2e-13 * scale_row
@@ -139,17 +140,14 @@ class TestSlabMode:
         a = ell.to_scipy()
         pk = dia.pack_csr_as_dia(a, coverage=0.8, max_offsets=2)
         params = pk.to_device(keep_widx=True)
-        op = comp.build_slab_mode(pk.meta, params, pk, k_cap=1,
-                                  interpret=True)
-        if op.tail_n == 0:
-            pytest.skip("no spill at this density")
+        op = comp.build(pk.meta, params, pk, mode="f64", k_cap=4)
+        assert op.tail_n > 0
         n = a.shape[0]
         rng = np.random.default_rng(3)
         x32 = rng.standard_normal(n).astype(np.float32)
         x_pad = np.zeros(pk.np_, np.float32)
         x_pad[:n] = x32
-        y = np.asarray(comp.matvec_slab(op, op.params,
-                                        jnp.asarray(x_pad), pk.meta))
+        y = np.asarray(comp.matvec(op, op.params, jnp.asarray(x_pad)))
         ref = a @ x32.astype(np.float64)
         rel = np.abs(y[:n] - ref).max() / np.abs(ref).max()
         assert rel < 1e-10, rel

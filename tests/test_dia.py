@@ -1,9 +1,9 @@
 """Block-offset-DIA operator format (ops.dia): packing, matvec parity.
 
-Correctness is validated on CPU via the XLA backend (the einsum path);
-the pallas backend computes the identical contraction on TPU and is
-benchmarked by bench.py.  Reference counterpart: the sparse operator
-inside scipy.spsolve (reference solver.py:767-780).
+Correctness is validated on the CPU against scipy; the same XLA einsum
+contraction runs on the GPU (chip_smoke.py checks it there at full
+width).  Reference counterpart: the sparse operator inside scipy.spsolve
+(reference solver.py:767-780).
 """
 
 import numpy as np
@@ -61,7 +61,7 @@ class TestPackDia:
         rng = np.random.default_rng(1)
         x = rng.standard_normal((n, 3)).astype(np.float32)
         xp = dia.pad_to(jnp.asarray(x), pk.np_)
-        y = np.asarray(dia.dia_matvec(pk.meta, params, xp, backend="xla"))
+        y = np.asarray(dia.dia_matvec(pk.meta, params, xp))
         yref = a @ x
         assert np.abs(y[:n] - yref).max() / np.abs(yref).max() < 1e-5
         assert np.all(y[n:] == 0)
@@ -78,7 +78,7 @@ class TestPackDia:
         params = pk.to_device()
         x = np.random.default_rng(2).standard_normal(500).astype(np.float32)
         xp = dia.pad_to(jnp.asarray(x), pk.np_)
-        y = np.asarray(dia.dia_matvec(pk.meta, params, xp, backend="xla"))
+        y = np.asarray(dia.dia_matvec(pk.meta, params, xp))
         yref = a @ x
         assert y.ndim == 1
         assert np.abs(y[:500] - yref).max() / np.abs(yref).max() < 1e-5
@@ -88,7 +88,7 @@ class TestPackDia:
                           np.zeros(0))
         params = pk.to_device()
         x = jnp.ones((pk.np_, 2), jnp.float32)
-        y = np.asarray(dia.dia_matvec(pk.meta, params, x, backend="xla"))
+        y = np.asarray(dia.dia_matvec(pk.meta, params, x))
         assert np.all(y == 0)
 
     def test_jit_with_static_meta(self):
@@ -97,10 +97,10 @@ class TestPackDia:
         rows, cols, vals, diag, a = random_system(n=700, m=3000, spread=40)
         pk = dia.pack_dia(700, rows, cols, vals, diag=diag)
         params = pk.to_device()
-        f = jax.jit(dia.dia_matvec, static_argnames=("meta", "backend"))
+        f = jax.jit(dia.dia_matvec, static_argnames=("meta",))
         x = np.random.default_rng(3).standard_normal((700, 2)).astype(np.float32)
         xp = dia.pad_to(jnp.asarray(x), pk.np_)
-        y = np.asarray(f(pk.meta, params, xp, backend="xla"))
+        y = np.asarray(f(pk.meta, params, xp))
         yref = a @ x
         assert np.abs(y[:700] - yref).max() / np.abs(yref).max() < 1e-5
 
@@ -120,7 +120,7 @@ class TestAdapters:
         x = rng.standard_normal((n, 2)).astype(np.float32)
         # matvec in permuted coordinates == permuted reference matvec
         xp = dia.pad_to(jnp.asarray(x[perm]), pk.np_)
-        y = np.asarray(dia.dia_matvec(pk.meta, params, xp, backend="xla"))
+        y = np.asarray(dia.dia_matvec(pk.meta, params, xp))
         yref = (ell.to_scipy() @ x)[perm]
         assert np.abs(y[:n] - yref).max() / np.abs(yref).max() < 1e-5
 
@@ -130,7 +130,7 @@ class TestAdapters:
         params = pk.to_device()
         x = np.random.default_rng(5).standard_normal((900, 2)).astype(np.float32)
         xp = dia.pad_to(jnp.asarray(x), pk.np_)
-        y = np.asarray(dia.dia_matvec(pk.meta, params, xp, backend="xla"))
+        y = np.asarray(dia.dia_matvec(pk.meta, params, xp))
         yref = a @ x
         assert np.abs(y[:900] - yref).max() / np.abs(yref).max() < 1e-5
 
@@ -175,7 +175,7 @@ class TestHiDeltaEncoding:
         params = pk.to_device()
         x = rng.standard_normal((n, 2)).astype(np.float32)
         xp = dia.pad_to(jnp.asarray(x), pk.np_)
-        y = np.asarray(dia.dia_matvec(pk.meta, params, xp, backend="xla"))
+        y = np.asarray(dia.dia_matvec(pk.meta, params, xp))
         yref = a @ x
         assert np.abs(y[:n] - yref).max() / np.abs(yref).max() < 1e-5
 
@@ -286,16 +286,12 @@ class TestToDeviceGuards:
 
         x = rng.standard_normal((pk.np_, 3)).astype(np.float32)
         xj = jnp.asarray(x)
-        ys = np.asarray(dia.dia_matvec(pk.meta, p_scatter, xj,
-                                       backend="xla"))
-        yg = np.asarray(dia.dia_matvec(pk.meta, p_gather, xj,
-                                       backend="xla"))
+        ys = np.asarray(dia.dia_matvec(pk.meta, p_scatter, xj))
+        yg = np.asarray(dia.dia_matvec(pk.meta, p_gather, xj))
         np.testing.assert_array_equal(ys, yg)
         xt = jnp.asarray(x.T)
-        yst = np.asarray(dia.dia_matvec_t(pk.meta, p_scatter, xt,
-                                          backend="xla"))
-        ygt = np.asarray(dia.dia_matvec_t(pk.meta, p_gather, xt,
-                                          backend="xla"))
+        yst = np.asarray(dia.dia_matvec_t(pk.meta, p_scatter, xt))
+        ygt = np.asarray(dia.dia_matvec_t(pk.meta, p_gather, xt))
         np.testing.assert_array_equal(yst, ygt)
 
     def test_rem_ell_memoized_and_replace_safe(self):
@@ -319,36 +315,6 @@ class TestToDeviceGuards:
         total2 = sum(len(r2[0][d][0]) * d for d in dia.DiaPack.REM_BUCKETS
                      ) + len(r2[1])
         assert total2 == half
-
-
-class TestPallasVmemGuard:
-    """Packs whose x-window exceeds the per-step VMEM budget must route
-    to the XLA einsum instead of crashing Mosaic at runtime (observed:
-    a deep-widened level-1 pack with offsets reaching +-3068 blocks
-    OOMed scoped vmem at R=8 on v5e)."""
-
-    def test_budget_estimate_and_dispatch(self, monkeypatch):
-        import jax.numpy as jnp
-
-        # Far offsets -> huge window: (g + 2*dmax) * b
-        meta = (128 * 1024, 128, 8, 128, (-3000, -1, 0, 1, 3000))
-        assert dia._pallas_vmem_bytes(meta, 4, 8) > dia._PALLAS_VMEM_BUDGET
-        # Local offsets at modest R stay under budget.
-        meta_ok = (128 * 1024, 128, 8, 128, (-2, -1, 0, 1, 2))
-        assert (dia._pallas_vmem_bytes(meta_ok, 4, 8)
-                < dia._PALLAS_VMEM_BUDGET)
-
-        called = {}
-
-        def fake_xla(meta, w, xt_pad, extra=None):
-            called["xla"] = True
-            return jnp.zeros((xt_pad.shape[0], meta[0]), jnp.float32)
-
-        monkeypatch.setattr(dia, "_xla_main", fake_xla)
-        w = jnp.zeros((128, 8, 5, 128, 128), jnp.float32)
-        xt_pad = jnp.zeros((8, meta[0] + 2 * 3000 * 128), jnp.float32)
-        dia._run_main("pallas", meta, w, xt_pad)
-        assert called.get("xla")
 
 
 class TestExtraSlots:
@@ -400,9 +366,8 @@ class TestExtraSlots:
         ex = dia.pack_extra_slots(pk, 4)
         assert len(ex.idx) > 0.5 * len(pk.rem_rows)
 
-    @pytest.mark.parametrize("backend", ["xla", "interpret"])
     @pytest.mark.parametrize("slots", [1, 4, 8])
-    def test_matvec_parity(self, backend, slots):
+    def test_matvec_parity(self, slots):
         pk, a = self._pack()
         params = pk.to_device(slots=slots)
         assert "xs_tgt" in params
@@ -410,15 +375,13 @@ class TestExtraSlots:
         x = np.random.default_rng(7).standard_normal((n, 3)).astype(
             np.float32)
         xp = dia.pad_to(jnp.asarray(x), pk.np_)
-        y = np.asarray(dia.dia_matvec(pk.meta, params, xp,
-                                      backend=backend))
+        y = np.asarray(dia.dia_matvec(pk.meta, params, xp))
         yref = a @ x
         assert np.abs(y[:n] - yref).max() / np.abs(yref).max() < 1e-5
         assert np.all(y[n:] == 0)
         # transposed layout
         yt = np.asarray(dia.dia_matvec_t(pk.meta, params,
-                                         jnp.asarray(xp.T),
-                                         backend=backend))
+                                         jnp.asarray(xp.T)))
         assert np.abs(yt.T[:n] - yref).max() / np.abs(yref).max() < 1e-5
 
     def test_keep_widx_composes_with_slots(self):
@@ -472,8 +435,7 @@ class TestExtraSlots:
         scale = max(np.abs(base.v).max(), 1e-12)
         assert np.abs(got.v - base.v).max() < 1e-6 * scale
 
-    @pytest.mark.parametrize("backend", ["xla", "interpret"])
-    def test_bf16_slab_parity(self, backend):
+    def test_bf16_slab_parity(self):
         # V-cycle configuration: bf16 slab + slot tables (loose gate —
         # preconditioner-only precision).
         pk, a = self._pack()
@@ -483,13 +445,11 @@ class TestExtraSlots:
         x = np.random.default_rng(9).standard_normal((n, 2)).astype(
             np.float32)
         xp = dia.pad_to(jnp.asarray(x), pk.np_)
-        y = np.asarray(dia.dia_matvec(pk.meta, params, xp,
-                                      backend=backend))
+        y = np.asarray(dia.dia_matvec(pk.meta, params, xp))
         yref = a @ x
         assert np.abs(y[:n] - yref).max() / np.abs(yref).max() < 2e-2
 
-    @pytest.mark.parametrize("backend", ["xla", "interpret"])
-    def test_mixed_bf16_slab_f32_slots(self, backend):
+    def test_mixed_bf16_slab_f32_slots(self):
         # A bf16 slab REUSED under an f32 request leaves the slot
         # weights f32 while the slab is bf16 (the lumped-smoothing
         # construction); operand dtypes must still agree in-kernel.
@@ -502,8 +462,7 @@ class TestExtraSlots:
         x = np.random.default_rng(11).standard_normal((n, 2)).astype(
             np.float32)
         xp = dia.pad_to(jnp.asarray(x), pk.np_)
-        y = np.asarray(dia.dia_matvec(pk.meta, params, xp,
-                                      backend=backend))
+        y = np.asarray(dia.dia_matvec(pk.meta, params, xp))
         yref = a @ x
         assert np.abs(y[:n] - yref).max() / np.abs(yref).max() < 2e-2
 
@@ -511,8 +470,8 @@ class TestExtraSlots:
 class TestTransposedRemainder:
     """The transposed-layout remainder path (dia._apply_remainder_t):
     small tails skip the (R, n) <-> (n, R) transpose sandwich around
-    the gather/scatter — two full-array relayouts that cost ~2 ms each
-    at 1M rows on TPU regardless of tail size."""
+    the gather/scatter — two full-array relayouts whose cost does not
+    shrink with the tail."""
 
     def _params(self, slots=0):
         rows, cols, vals, diag, a = random_system(spread=600)
@@ -528,11 +487,9 @@ class TestTransposedRemainder:
         xt = jnp.asarray(rng.standard_normal(
             (5, pk.np_)).astype(np.float32))
         monkeypatch.setenv("PADNE_TPU_REM_T", "0")
-        y_sand = np.asarray(dia.dia_matvec_t(pk.meta, params, xt,
-                                             backend="xla"))
+        y_sand = np.asarray(dia.dia_matvec_t(pk.meta, params, xt))
         monkeypatch.setenv("PADNE_TPU_REM_T", str(10**9))
-        y_t = np.asarray(dia.dia_matvec_t(pk.meta, params, xt,
-                                          backend="xla"))
+        y_t = np.asarray(dia.dia_matvec_t(pk.meta, params, xt))
         scale = np.abs(y_sand).max()
         assert np.abs(y_sand - y_t).max() / scale < 1e-6
 
@@ -545,8 +502,7 @@ class TestTransposedRemainder:
         xp = np.zeros((pk.np_, 3), np.float32)
         xp[:n] = x
         yt = np.asarray(dia.dia_matvec_t(pk.meta, params,
-                                         jnp.asarray(xp.T),
-                                         backend="xla"))
+                                         jnp.asarray(xp.T)))
         yref = a @ x
         assert (np.abs(yt.T[:n] - yref).max()
                 / np.abs(yref).max()) < 1e-5
@@ -556,3 +512,117 @@ class TestTransposedRemainder:
         pk, params, _ = self._params(slots=0)
         total = int(len(pk.rem_rows))
         assert dia._rem_count(params) == total
+
+
+def banded_system(n=1600, seed=0, spread=96):
+    """Random banded COO (off-diagonal, duplicate-free) + diagonal and
+    the scipy CSR of the whole operator."""
+    rng = np.random.default_rng(seed)
+    m = 6 * n
+    rows = rng.integers(0, n, m)
+    cols = np.clip(rows + rng.integers(-spread, spread + 1, m), 0, n - 1)
+    keep = rows != cols
+    rows, cols = rows[keep], cols[keep]
+    _, ui = np.unique(rows * n + cols, return_index=True)
+    rows, cols = rows[ui], cols[ui]
+    vals = rng.standard_normal(len(rows))
+    diag = rng.random(n) + 1.0
+    a = scipy.sparse.coo_matrix(
+        (np.concatenate([vals, diag]),
+         (np.concatenate([rows, np.arange(n)]),
+          np.concatenate([cols, np.arange(n)]))),
+        shape=(n, n)).tocsr()
+    return a, rows, cols, vals, diag
+
+
+class TestXlaSlab:
+    """The slab contraction (_xla_main, the only slab path) against
+    scipy: banded random operators in both layouts, bf16 slabs, a real
+    FEM operator and wide (d > 8) offset sets."""
+
+    @staticmethod
+    def _pack(n, rows, cols, vals, diag, **kw):
+        return dia.pack_dia(n, rows.astype(np.int64),
+                            cols.astype(np.int64), vals, diag, **kw)
+
+    def test_transposed_layout_matches_scipy(self):
+        n = 1600
+        a, rows, cols, vals, diag = banded_system(n)
+        pack = self._pack(n, rows, cols, vals, diag)
+        params = pack.to_device(dtype=jnp.float32)
+        rng = np.random.default_rng(1)
+        xt = rng.standard_normal((8, pack.np_)).astype(np.float32)
+        xt[:, n:] = 0.0
+        y = np.asarray(dia.dia_matvec_t(pack.meta, params,
+                                        jnp.asarray(xt)))
+        ref = (a @ xt[:, :n].T.astype(np.float64)).T
+        np.testing.assert_allclose(y[:, :n], ref, rtol=2e-5,
+                                   atol=2e-5 * np.abs(ref).max())
+        assert np.all(y[:, n:] == 0)
+
+    def test_row_layout_matches_scipy(self):
+        n = 1600
+        a, rows, cols, vals, diag = banded_system(n, seed=3)
+        pack = self._pack(n, rows, cols, vals, diag)
+        params = pack.to_device(dtype=jnp.float32)
+        x = np.random.default_rng(2).standard_normal((n, 4))
+        xp = np.zeros((pack.np_, 4))
+        xp[:n] = x
+        y = np.asarray(dia.dia_matvec(pack.meta, params,
+                                      jnp.asarray(xp, dtype=jnp.float32)))
+        np.testing.assert_allclose(y[:n], a @ x, rtol=5e-4, atol=5e-4)
+
+    def test_bf16_slabs_within_bf16_accuracy(self):
+        n = 1024
+        a, rows, cols, vals, diag = banded_system(n, seed=5, spread=64)
+        pack = self._pack(n, rows, cols, vals, diag)
+        p32 = pack.to_device(dtype=jnp.float32)
+        pbf = dict(p32)
+        pbf["w"] = p32["w"].astype(jnp.bfloat16)
+        xt = jnp.asarray(np.random.default_rng(4).standard_normal(
+            (8, pack.np_)), dtype=jnp.float32)
+        y32 = np.asarray(dia.dia_matvec_t(pack.meta, p32, xt))
+        ybf = np.asarray(dia.dia_matvec_t(pack.meta, pbf, xt),
+                         dtype=np.float32)
+        scale = np.abs(y32).max()
+        assert np.abs(ybf - y32).max() < 0.05 * scale
+
+    def test_fem_operator_matches_scipy(self):
+        from padne_tpu import geom, mesh
+        from padne_tpu.ops import assembly, bell
+
+        m = mesh.Mesher(mesh.Mesher.Config(maximum_size=0.5)).poly_to_mesh(
+            geom.box(0, 0, 8, 8))
+        ell = assembly.build_ell(
+            m.num_vertices, m.edges.astype(np.int64), m.cotan_edge_weights)
+        perm = bell.hilbert_order(m.vertices)  # perm[new] = old
+        pack = dia.pack_ell_as_dia(ell, perm=perm)
+        params = pack.to_device(dtype=jnp.float32)
+        n = m.num_vertices
+        inv = np.empty(n, dtype=np.int64)
+        inv[perm] = np.arange(n)
+        x = np.random.default_rng(7).standard_normal((n, 2))
+        xp = np.zeros((pack.np_, 2))
+        xp[inv] = x
+        y = np.asarray(dia.dia_matvec(pack.meta, params,
+                                      jnp.asarray(xp, dtype=jnp.float32)))
+        ref = ell.to_scipy() @ x
+        np.testing.assert_allclose(y[inv], ref,
+                                   atol=3e-4 * np.abs(ref).max())
+
+    def test_wide_offsets_match_scipy(self):
+        """Deep-level widening produces d = 24 slabs; the offset loop
+        and halo arithmetic must stay exact at wide offset counts."""
+        n = 1600
+        a, rows, cols, vals, diag = banded_system(n, spread=90)
+        pack = self._pack(n, rows, cols, vals, diag, b=8, max_offsets=24,
+                          coverage=0.995)
+        assert len(pack.offs) > 8
+        params = pack.to_device(dtype=jnp.float32)
+        xt = np.random.default_rng(3).standard_normal(
+            (8, pack.np_)).astype(np.float32)
+        y = np.asarray(dia.dia_matvec_t(pack.meta, params,
+                                        jnp.asarray(xt)))
+        ref = np.zeros((8, pack.np_))
+        ref[:, :n] = (a @ xt[:, :n].T.astype(np.float64)).T
+        np.testing.assert_allclose(y, ref, rtol=3e-5, atol=3e-5)

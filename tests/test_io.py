@@ -4,7 +4,7 @@ import warnings
 
 import numpy as np
 import pytest
-from lxml import etree
+from xml.etree import ElementTree as etree
 
 from padne_tpu import cli, geom, mesh, problem, solver
 from padne_tpu.io import htmlview, paraview, solution as solution_io

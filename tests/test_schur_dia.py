@@ -126,8 +126,8 @@ class TestDeepOffsetWidening:
                     edges.append((v, v + g + 1)); w.append(rng.random())
         ell = assembly.build_ell(n, np.array(edges), np.array(w))
         # deep_max_offsets=None inherits level 0's narrow budget; the
-        # DEFAULT is the widened one (24/0.995 — measured -0.4 s at the
-        # 1M bench), so the narrow base is requested explicitly.
+        # DEFAULT is the widened one (24/0.995), so the narrow base is
+        # requested explicitly.
         base = amg.build_hierarchy_dia(ell, coords, coarse_size=64,
                                        deep_max_offsets=None,
                                        deep_coverage=None)
@@ -328,3 +328,36 @@ class TestDirectWideBorderRoute:
         res = schur.solve_bordered(system)
         assert res.cg_iterations > 0
         assert res.residual_norm < 1e-8
+
+
+class TestNoSilentHostFallback:
+    """A failing device refinement path raises; it no longer hands the
+    solve to the host ladder behind the caller's back."""
+
+    def test_default_ladder_is_the_device_comp_ladder(self):
+        sol = schur.DiaBorderedSolver(make_system(g=64)).solve(
+            target_residual=1e-9)
+        assert sol.refinement_ladder.startswith("comp")
+        assert sol.residual_norm < 1e-9
+
+    @pytest.mark.parametrize("where", ["comp_setup", "comp_refine",
+                                       "anchor_setup"])
+    def test_failure_raises(self, monkeypatch, where):
+        def boom(*a, **kw):
+            raise ValueError("injected device failure")
+
+        system = make_system(g=64)
+        if where == "anchor_setup":
+            monkeypatch.setenv("PADNE_TPU_DEVICE_ANCHOR", "1")
+            monkeypatch.setattr(schur.DiaBorderedSolver, "_setup_anchor",
+                                boom)
+            with pytest.raises(ValueError, match="injected"):
+                schur.DiaBorderedSolver(system)
+            return
+        attr = "_setup_comp" if where == "comp_setup" else "_comp_refine"
+        monkeypatch.setattr(schur.DiaBorderedSolver, attr, boom)
+        s = schur.DiaBorderedSolver(system)
+        with pytest.raises((RuntimeError, ValueError)) as info:
+            s.solve(target_residual=1e-9)
+        chain = [info.value, info.value.__cause__]
+        assert any("injected" in str(e) for e in chain if e)

@@ -383,7 +383,7 @@ class TestDiagnostics:
 class TestMixedPrecision:
     def test_mixed_matches_f64(self):
         """f32 inner solves + f64 refinement reach the same solution as
-        the all-f64 path (the TPU production configuration)."""
+        the all-f64 path (the accelerator configuration)."""
         import jax.numpy as jnp
 
         from padne_tpu.ops import schur
